@@ -1,7 +1,6 @@
-"""A/B the device engine on the NEAR-IDENTICAL regime (the high-ANI
-workload from DESIGN.md round-4 continued 5: 12 x ~30 kb copies at 0.3%
-mutation — long extensions, few events, the serial multi-chunk
-extension-continuation loop binds). Respects LZANI_TPU_ILV / SIM.
+"""A/B the device engine on the NEAR-IDENTICAL regime: 12 x ~30 kb copies
+at 0.3% mutation — long extensions, few events: warm pairs/s of
+--backend jax's engine, checked against native.
 
 Usage: python scripts/ab_high_ani.py [n_genomes] [label]
 """
@@ -13,22 +12,15 @@ sys.path.insert(0, os.path.dirname(
     os.path.dirname(os.path.abspath(__file__))))
 
 import numpy as np
-import jax
 
-REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-jax.config.update("jax_compilation_cache_dir",
-                  os.path.join(REPO, ".jax_cache"))
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 10.0)
-
-from lzani_tpu.core import native_engine as ne
-from lzani_tpu.ops.pallas_engine import all2all_pallas
-from lzani_tpu.params import Params
-
-N = int(sys.argv[1]) if len(sys.argv) > 1 else 12
-label = sys.argv[2] if len(sys.argv) > 2 else "run"
+from lzani.core import native_engine as ne
+from lzani.params import Params
 
 
-def synth():
+DEFAULT_N = 12
+
+
+def synth(N):
     rng = np.random.RandomState(5)
     base = rng.randint(0, 4, 30000).astype(np.uint8)
     codes = []
@@ -42,21 +34,28 @@ def synth():
 
 
 def main():
-    codes = synth()
+    from lzani.runtime import enable_compile_cache, set_xla_flags
+
+    set_xla_flags()
+    enable_compile_cache()
+    from lzani.ops.engine_jax import all2all_jax
+
+    N = int(sys.argv[1]) if len(sys.argv) > 1 else DEFAULT_N
+    label = sys.argv[2] if len(sys.argv) > 2 else "run"
+    codes = synth(N)
     pairs = len(codes) * (len(codes) - 1)
     p = Params()
     p.no_threads = os.cpu_count() or 1
     ref = ne.all2all(codes, p)
     t0 = time.perf_counter()
-    out = all2all_pallas(codes, p)   # cold (compile + load)
+    out = all2all_jax(codes, p)   # cold (compile + load)
     cold = time.perf_counter() - t0
     warm = 1e9
     for _ in range(3):
         t0 = time.perf_counter()
-        out = all2all_pallas(codes, p)
+        out = all2all_jax(codes, p)
         warm = min(warm, time.perf_counter() - t0)
-    print(f"[{label}] ILV={os.environ.get('LZANI_TPU_ILV', 'auto')} "
-          f"N={N} pairs={pairs}: warm {pairs/warm:.1f} pairs/s "
+    print(f"[{label}] N={N} pairs={pairs}: warm {pairs/warm:.1f} pairs/s "
           f"(cold {cold:.0f}s) exact={np.array_equal(out, ref)}",
           flush=True)
 

@@ -102,7 +102,7 @@ def write_filter(fam_of, rng):
 
 def run_cli(backend, threads):
     out = os.path.join(WORK, f"out.{backend}.tsv")
-    cmd = [sys.executable, "-m", "lzani_tpu.cli", "all2all",
+    cmd = [sys.executable, "-m", "lzani.cli", "all2all",
            "--in-fasta", os.path.join(WORK, "genomes.fna"),
            "--flt-kmerdb", os.path.join(WORK, "fltr.txt"), "0.2",
            "--out", out, "-t", str(threads), "-V", "2",

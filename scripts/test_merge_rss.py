@@ -28,7 +28,7 @@ def rank_main(rank: int, port: int) -> None:
     jax.config.update("jax_platforms", "cpu")
     jax.distributed.initialize(f"127.0.0.1:{port}", 2, rank)
 
-    from lzani_tpu.parallel.distributed import gather_merge
+    from lzani.parallel.distributed import gather_merge
 
     # CSR semantics (matcher.py multi-host branch): total_slots = the
     # filter entry count, slot ids = global CSR entry indices. A 50k-

@@ -42,7 +42,7 @@ def main():
 
     rss0 = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss  # KiB
     t0 = time.time()
-    from lzani_tpu.io.fasta import SequenceStore
+    from lzani.io.fasta import SequenceStore
 
     store = SequenceStore()
     store.load_multifasta([path])

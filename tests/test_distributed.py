@@ -6,12 +6,12 @@ import numpy as np
 
 import jax
 
-from lzani_tpu.core import native_engine as ne
-from lzani_tpu.parallel.distributed import (all2all_multihost,
+from lzani.core import native_engine as ne
+from lzani.parallel.distributed import (all2all_multihost,
                                             local_filter_csr,
                                             merge_host_triples,
                                             partition_refs)
-from lzani_tpu.params import Params
+from lzani.params import Params
 
 
 def _codes(n, seed=41):
@@ -41,8 +41,8 @@ def test_two_host_dense_merge_matches_oracle():
     total = None
     for h in range(2):
         slots, triples, total = all2all_multihost(
-            codes, p, interpret=True,
-            devices=[devs[h % len(devs)]], process_id=h, num_processes=2)
+            codes, p, device=devs[h % len(devs)], process_id=h,
+            num_processes=2)
         per_host.append((slots, triples))
     merged = merge_host_triples(total, per_host)
     want = ne.all2all(codes, p).reshape(-1, 3)
@@ -66,8 +66,7 @@ def test_two_host_filter_merge_matches_oracle():
     total = None
     for h in range(2):
         slots, triples, total = all2all_multihost(
-            codes, p, filter_csr=csr, interpret=True,
-            process_id=h, num_processes=2)
+            codes, p, filter_csr=csr, process_id=h, num_processes=2)
         per_host.append((slots, triples))
     merged = merge_host_triples(total, per_host)
     want = ne.all2all(codes, p, filter_csr=csr)
@@ -90,7 +89,7 @@ def test_slot_halves_roundtrip_beyond_int32():
     halves (x64 is disabled under jax, so raw int64 would silently
     truncate). Round-trip must be exact past 2^31 — dense slot ids cross
     it from ~46k genomes."""
-    from lzani_tpu.parallel.distributed import (join_slots_i32,
+    from lzani.parallel.distributed import (join_slots_i32,
                                                 split_slots_i32)
 
     s = np.array([0, 1, 2**31 - 1, 2**31, 2**31 + 7, 2**40 + 123,
@@ -115,7 +114,7 @@ def test_gather_merge_chunked_to_output_rank_only(monkeypatch):
 
     from jax.experimental import multihost_utils as mhu
 
-    from lzani_tpu.parallel import distributed as D
+    from lzani.parallel import distributed as D
 
     nh = 2
     tl = threading.local()

@@ -6,7 +6,7 @@ import os
 import pytest
 
 from conftest import REFERENCE, requires_reference
-from lzani_tpu.cli import main as cli_main
+from lzani.cli import main as cli_main
 
 VIR61 = os.path.join(REFERENCE, "test", "vir61")
 EXAMPLE = os.path.join(REFERENCE, "example")

@@ -10,8 +10,8 @@ import os
 import numpy as np
 import pytest
 
-from lzani_tpu.core import native_engine as ne
-from lzani_tpu.params import Params
+from lzani.core import native_engine as ne
+from lzani.params import Params
 from conftest import requires_reference
 
 
@@ -71,7 +71,7 @@ def test_replay_nondefault_params():
 
 @requires_reference
 def test_replay_vir61_sample():
-    from lzani_tpu.io.fasta import load_store
+    from lzani.io.fasta import load_store
 
     p = Params()
     p.input_file_names = sorted(

@@ -2,8 +2,8 @@
 
 import numpy as np
 
-from lzani_tpu.io.fasta import CODE_N_SEQ, SequenceStore, encode_dna
-from lzani_tpu.params import Params
+from lzani.io.fasta import CODE_N_SEQ, SequenceStore, encode_dna
+from lzani.params import Params
 
 
 def test_encode_dna():
@@ -61,7 +61,7 @@ def test_params_format_grammar():
     p.parse_output_format("lite,rlen")
     assert p.output_components[-1] == "rlen"
     import pytest
-    from lzani_tpu.params import ParamError
+    from lzani.params import ParamError
     with pytest.raises(ParamError):
         p.parse_output_format("bogus")
     with pytest.raises(ParamError):
@@ -74,8 +74,8 @@ def test_packed_store_native_engine_identical():
     """U3: the packed-arena native path (lza_all2all_packed) must be
     byte-identical to the legacy unpacked path on the same random set."""
     import numpy as np
-    from lzani_tpu.core import native_engine
-    from lzani_tpu.io.packing import pack_items
+    from lzani.core import native_engine
+    from lzani.io.packing import pack_items
 
     rng = np.random.RandomState(11)
     base = rng.randint(0, 4, 4000).astype(np.uint8)
@@ -103,7 +103,7 @@ def test_packed_store_native_engine_identical():
 
 def test_packed_codes_view_semantics():
     import numpy as np
-    from lzani_tpu.io.packing import pack_items
+    from lzani.io.packing import pack_items
 
     rng = np.random.RandomState(3)
     codes = [rng.randint(0, 6, int(n)).astype(np.uint8)

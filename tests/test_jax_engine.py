@@ -9,8 +9,8 @@ reference buffer), N runs, desyncs, and short/empty sequences.
 import numpy as np
 import pytest
 
-from lzani_tpu.core import native_engine
-from lzani_tpu.params import Params
+from lzani.core import native_engine
+from lzani.params import Params
 
 
 def mutate(rng, seq, sub=0.0, indel=0.0):
@@ -67,7 +67,7 @@ def cases():
 
 @pytest.fixture(scope="module")
 def jax_engine():
-    from lzani_tpu.ops.engine_jax import parse_pair_jax
+    from lzani.ops.engine_jax import parse_pair_jax
     return parse_pair_jax
 
 
@@ -98,7 +98,7 @@ def test_pair_parity_nondefault_params(jax_engine):
 
 def test_batch_matches_oracle(jax_engine):
     """all2all_jax over a small set == native all2all."""
-    from lzani_tpu.ops.engine_jax import all2all_jax
+    from lzani.ops.engine_jax import all2all_jax
     rng = np.random.default_rng(3)
     base = rng.integers(0, 4, 600).astype(np.uint8)
     codes = [base,

@@ -10,7 +10,7 @@ import tempfile
 import numpy as np
 import pytest
 
-from lzani_tpu.io.kmerdb_filter import PairFilter
+from lzani.io.kmerdb_filter import PairFilter
 
 
 def _write(path: str, text: str, gz: bool) -> None:

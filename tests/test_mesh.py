@@ -5,10 +5,10 @@ import pytest
 
 import jax
 
-from lzani_tpu.params import Params
-from lzani_tpu.parallel.mesh import ShardedRefIndex, all2all_sharded, make_mesh
-from lzani_tpu.core import native_engine
-from lzani_tpu.ops.engine_jax import all2all_jax
+from lzani.params import Params
+from lzani.parallel.mesh import ShardedRefIndex, all2all_sharded, make_mesh
+from lzani.core import native_engine
+from lzani.ops.engine_jax import all2all_jax
 
 
 def _toy_set(n=5, L=300, seed=7):

@@ -16,7 +16,7 @@ RUNNER = """
 import sys
 import jax
 jax.config.update("jax_platforms", "cpu")
-from lzani_tpu.cli import main
+from lzani.cli import main
 raise SystemExit(main(sys.argv[1:]))
 """
 

@@ -8,9 +8,9 @@ import tempfile
 
 import numpy as np
 
-from lzani_tpu.core import native_engine as ne
-from lzani_tpu.output import ResultMatrix, results_tsv_lines
-from lzani_tpu.params import Params
+from lzani.core import native_engine as ne
+from lzani.output import ResultMatrix, results_tsv_lines
+from lzani.params import Params
 
 
 class FakeStore:

@@ -2,7 +2,7 @@
 
 import numpy as np
 
-from lzani_tpu.io.packing import PackedSeq, pack3, unpack3
+from lzani.io.packing import PackedSeq, pack3, unpack3
 
 
 def test_roundtrip_all_lengths():

@@ -1,7 +1,7 @@
 """Formatter semantics (reference: refresh::real_to_pchar,
 numeric_conversions.h:229-300,341-388)."""
 
-from lzani_tpu.utils.textnum import format_int, format_real
+from lzani.utils.textnum import format_int, format_real
 
 
 def test_zero_one_nan_inf():
