@@ -11,7 +11,9 @@ and factor lists with the native oracle. Phase 2 runs the CLI with
 filter and --out-alignment) and compares its outputs with --backend
 native.
 Phase 3 runs the default hybrid backend with the device made to join and
-compares its outputs with native. With --chips 4 the script runs only the
+compares its outputs with native. Phase 4 puts a smaller set of
+viral-length genomes (80-190 kb) through the kmer-db filter and
+--out-alignment, on --backend jax and on the hybrid, against native. With --chips 4 the script runs only the
 CLI's jax.distributed launch as four processes, one per card, on the
 phase 2 set, and compares it with native.
 
@@ -36,13 +38,19 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 # phase 1: one reference of viral length and its queries, one 1 Mb pair
 P1_REF_LEN = 60_000
 P1_BIG_LEN = 1_000_000
-# phase 2/3: the viral-like set. The genome count is cut to 24, and the
-# lengths to the low end of viral genomes: the device engine costs one
+# phase 2/3: the viral-like set, dense. The genome count is cut to 24, and
+# the lengths to the low end of viral genomes: the device engine costs one
 # loop step per symbol of an unrelated query, so a dense row of
-# 80-190 kb genomes takes ~90 s on an H100 (PERF.md), and the runs below
+# 80-190 kb genomes takes ~90 s on an H100 (PERF.md), and four dense runs
 # would take hours.
 SET_GENOMES = 24
 SET_LENGTHS = (20_000, 25_000)
+# phase 4: genomes of the long half of vir61's range in two species-level
+# clusters (up to 5% divergence from their ancestor), filtered as Vclust
+# runs them (kmer-db first), so the device parses related pairs only
+LONG_GENOMES = 8
+LONG_LENGTHS = (80_000, 190_000)
+LONG_DIVERGENCE = (0.003, 0.05)
 
 
 class SmokeError(Exception):
@@ -101,7 +109,7 @@ def phase1(seed):
     big = rng.integers(0, 4, P1_BIG_LEN).astype(np.uint8)
     big_q = synth.mutate(rng, big, sub=0.01, indel=0.001)
     dev = __import__("jax").local_devices()[0]
-    budget = engine_jax.batch_budget_bytes(dev)
+    budget = engine_jax.DeviceBudget.for_device(dev)
 
     def run_row(r_codes, q_list):
         codes = [r_codes] + q_list
@@ -136,15 +144,33 @@ def phase1(seed):
 
 
 # ---- phases 2 and 3 ---------------------------------------------------------
-def make_set(tmp, seed):
+def make_set(tmp, seed, n=SET_GENOMES, lengths=SET_LENGTHS, tag="set",
+             **kw):
     from lzani import synth
 
-    names, codes = synth.viral_set(seed, SET_GENOMES, lengths=SET_LENGTHS)
-    fasta = os.path.join(tmp, "set.fna")
+    names, codes = synth.viral_set(seed, n, lengths=lengths, **kw)
+    fasta = os.path.join(tmp, f"{tag}.fna")
     synth.write_fasta(fasta, names, codes)
-    flt = os.path.join(tmp, "kmerdb.txt")
+    flt = os.path.join(tmp, f"{tag}.kmerdb.txt")
     synth.write_kmerdb_filter(flt, names, codes)
     return fasta, flt, len(codes)
+
+
+def run_hybrid_greedy(argv):
+    """The default backend with the device made to join; fails unless the
+    device parsed pairs and nothing fell back to the host."""
+    os.environ["LZANI_HYBRID_GREEDY"] = "1"
+    try:
+        t, m = run_cli(argv)
+    finally:
+        del os.environ["LZANI_HYBRID_GREEDY"]
+    hst = m.hybrid_stats
+    check(hst.get("warm_why") is None,
+          f"device warm-up refused: {hst.get('warm_why')}")
+    check(hst.get("device_pairs", 0) > 0, "the device took no rows")
+    check(hst.get("recovered_rows", 0) == 0,
+          "device rows were recovered on the host")
+    return t, hst
 
 
 def run_cli(argv):
@@ -202,21 +228,38 @@ def phase2_3(tmp, seed):
         f"byte-equal and --out-alignment rows set-equal to native "
         f"({t_flt:.2f} s)")
 
-    os.environ["LZANI_HYBRID_GREEDY"] = "1"
-    try:
-        t_hyb, m = run_cli(base + ["--out", out("hybrid")])
-    finally:
-        del os.environ["LZANI_HYBRID_GREEDY"]
-    hst = m.hybrid_stats
-    check(hst.get("warm_why") is None,
-          f"phase 3: device warm-up refused: {hst.get('warm_why')}")
-    check(hst.get("device_pairs", 0) > 0, "phase 3: the device took no rows")
-    check(hst.get("recovered_rows", 0) == 0,
-          "phase 3: device rows were recovered on the host")
+    t_hyb, hst = run_hybrid_greedy(base + ["--out", out("hybrid")])
     outputs_equal(out("native"), out("hybrid"))
     log(f"phase 3: hybrid {pairs} pairs byte-equal to native in "
         f"{t_hyb:.2f} s; device pairs {hst['device_pairs']}, native pairs "
         f"{hst['cpu_pairs']}, warm-up {hst['warm_s']:.2f} s")
+
+
+def phase4(tmp, seed):
+    fasta, flt, n = make_set(tmp, seed, LONG_GENOMES, LONG_LENGTHS, "long",
+                             n_ancestors=2, divergence=LONG_DIVERGENCE)
+    base = ["all2all", "--in-fasta", fasta, "-V", "0", "--flt-kmerdb", flt,
+            "0.2"]
+
+    def out(tag):
+        return os.path.join(tmp, f"long_{tag}.tsv")
+
+    run_cli(base + ["--out", out("native"), "--backend", "native",
+                    "--out-alignment", out("native.aln")])
+    t_jax, m = run_cli(base + ["--out", out("jax"), "--backend", "jax",
+                               "--out-alignment", out("jax.aln")])
+    outputs_equal(out("native"), out("jax"),
+                  (out("native.aln"), out("jax.aln")))
+    kept = m.filter.total
+    check(0 < kept < n * (n - 1), f"the filter kept {kept} pairs")
+    log(f"phase 4: {n} genomes of {LONG_LENGTHS[0]}-{LONG_LENGTHS[1]} "
+        f"symbols, kmer-db filter kept {kept} pairs; --backend jax outputs "
+        f"byte-equal and --out-alignment rows set-equal to native in "
+        f"{t_jax:.2f} s ({kept / t_jax:.3f} pairs/s)")
+    t_hyb, hst = run_hybrid_greedy(base + ["--out", out("hybrid")])
+    outputs_equal(out("native"), out("hybrid"))
+    log(f"phase 4: hybrid byte-equal to native in {t_hyb:.2f} s; device "
+        f"pairs {hst['device_pairs']}, native pairs {hst['cpu_pairs']}")
 
 
 # ---- --chips 4 --------------------------------------------------------------
@@ -305,6 +348,7 @@ def main() -> int:
             else:
                 phase1(args.seed)
                 phase2_3(tmp, args.seed)
+                phase4(tmp, args.seed)
         log(smi)
     except SmokeError as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)

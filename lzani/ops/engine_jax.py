@@ -11,11 +11,13 @@ Shapes are bucketed to powers of two so XLA compiles a small number of
 variants; padding symbols are N codes, which can never match (the
 reference's own masking trick, defs.h:24-30), and true lengths bound every
 extension. Batches are sized from the bytes one pair keeps live on the
-device against the memory the device reports.
+device against the memory the device reports, and a DeviceBudget bounds
+the bytes of all batches dispatched and not yet fetched, across rows.
 """
 
 from __future__ import annotations
 
+from collections import deque
 from functools import lru_cache
 
 import jax
@@ -29,12 +31,17 @@ MIN_BUCKET = 256
 
 # Bytes one pair keeps live on the device per padded query symbol: the u8
 # query buffer, two int64 k-mer streams and the int32[4] factor stack, the
-# stack counted three times for the copies XLA may keep across the
-# automaton's branches and loops.
+# stack counted three times for the copies XLA keeps across the
+# automaton's branches and loops. The compiled batch programs take
+# 65.0-65.4 B (temporaries, outputs and query buffer) on an H100 at 1-32
+# lanes of 32k-1M symbols (PERF.md).
 PAIR_BYTES_PER_SYM = 1 + 2 * 8 + 3 * 16
-# Share of the device's free memory one batch may fill; the rest is left to
-# the reference index, the next row's inputs and XLA's own workspace.
+# Share of the device's free memory that dispatched batches may hold at
+# once; the rest is left to the reference indexes and XLA's own workspace.
 BATCH_MEM_SHARE = 0.5
+# Batches the budget holds at once at the largest batch size: one parsing
+# while the next is queued behind it.
+BATCHES_IN_FLIGHT = 2
 # A device that reports no memory limit (the CPU backend) gets this budget.
 HOST_BUDGET_BYTES = 1 << 30
 
@@ -51,7 +58,7 @@ def table_size_for(buf_len: int) -> int:
 
 
 def batch_budget_bytes(device) -> int:
-    """Bytes one parse batch may occupy on ``device``."""
+    """Bytes the dispatched parse batches may occupy on ``device``."""
     stats = device.memory_stats() if device is not None else None
     if not stats or "bytes_limit" not in stats:
         return HOST_BUDGET_BYTES
@@ -64,9 +71,13 @@ def max_batch(Lq: int, budget: int) -> int:
     return prep.pow2_floor(max(1, budget // (Lq * PAIR_BYTES_PER_SYM)))
 
 
+def batch_bytes(B: int, Lq: int) -> int:
+    return B * Lq * PAIR_BYTES_PER_SYM
+
+
 def plan_batches(q_lens, mrd: int, budget: int) -> list[list[int]]:
     """Group query indices by padded length, then cut each group into
-    batches that fit the memory budget. Returns lists of indices into
+    batches of at most ``budget`` bytes each. Returns lists of indices into
     q_lens, each batch sharing one length bucket."""
     groups: dict[int, list[int]] = {}
     for k in sorted(range(len(q_lens)), key=lambda k: q_lens[k]):
@@ -76,6 +87,70 @@ def plan_batches(q_lens, mrd: int, budget: int) -> list[list[int]]:
         b = max_batch(Lq, budget)
         out.extend(ks[s:s + b] for s in range(0, len(ks), b))
     return out
+
+
+class Batch:
+    """One dispatched parse batch: the row's query slots it holds, its
+    device outputs until fetched, then their host copies."""
+
+    def __init__(self, sel, out, nbytes: int, want_factors: bool):
+        self.sel, self.out, self.nbytes = sel, out, nbytes
+        self.want_factors = want_factors
+        self.stats = self.factors = None
+
+    def fetch(self):
+        """Copy the outputs to the host and drop the device buffers. Only
+        each lane's used stack rows (fp) cross, rounded up to a power of
+        two so that few slice shapes compile."""
+        if self.out is None:
+            return
+        n = len(self.sel)
+        if self.want_factors:
+            st, fac, fp = self.out
+            fp = np.asarray(fp)[:n]
+            rows = min(prep.pow2_ceil(max(int(fp.max(initial=0)), 1)),
+                       fac.shape[1])
+            fac = np.asarray(fac[:, :rows])
+            self.factors = [fac[k, :fp[k]] for k in range(n)]
+        else:
+            st = self.out
+        self.stats = np.asarray(st)[:n]
+        self.out = None
+
+
+class DeviceBudget:
+    """Bytes that dispatched parse batches may hold on the device at once,
+    across rows. Admitting a batch past the budget first fetches the
+    oldest live batches to the host, which frees their device buffers (an
+    output factor stack stays resident until then)."""
+
+    def __init__(self, nbytes: int):
+        self.nbytes = nbytes
+        self.live: deque = deque()
+        self.used = 0
+        self.peak = 0
+
+    @classmethod
+    def for_device(cls, device) -> "DeviceBudget":
+        return cls(batch_budget_bytes(device))
+
+    @property
+    def batch_limit(self) -> int:
+        """Bytes one batch may take."""
+        return self.nbytes // BATCHES_IN_FLIGHT
+
+    def admit(self, batch: Batch):
+        while self.live and self.used + batch.nbytes > self.nbytes:
+            self.release(self.live[0])
+        self.live.append(batch)
+        self.used += batch.nbytes
+        self.peak = max(self.peak, self.used)
+
+    def release(self, batch: Batch):
+        batch.fetch()
+        if batch in self.live:
+            self.live.remove(batch)
+            self.used -= batch.nbytes
 
 
 @lru_cache(maxsize=64)
@@ -167,36 +242,39 @@ def seq_len(codes, i: int) -> int:
 
 
 def dispatch_row(codes, r: int, q_ids: list[int], params, device,
-                 budget: int, want_factors: bool = False):
+                 budget: DeviceBudget, want_factors: bool = False):
     """Build reference r's index and dispatch every batch of its queries
-    without waiting for the device. Returns the handle collect_row takes."""
+    without waiting for the device, within ``budget``. Returns the handle
+    collect_row takes."""
     idx = RefIndexJax(codes[r], params, device)
     mrd = params.max_dist_in_ref
-    handles = []
-    for sel in plan_batches([seq_len(codes, q) for q in q_ids], mrd,
-                            budget):
+    lens = [seq_len(codes, q) for q in q_ids]
+    batches = []
+    for sel in plan_batches(lens, mrd, budget.batch_limit):
         pad = prep.pow2_ceil(len(sel))
-        out = idx.parse_batch([codes[q_ids[k]] for k in sel], params,
-                              want_factors, pad_to=pad)
-        handles.append((sel, out))
-    return r, q_ids, handles
+        nbytes = batch_bytes(pad, bucket_len(max(lens[k] for k in sel)
+                                             + mrd))
+        batch = Batch(sel, None, nbytes, want_factors)
+        budget.admit(batch)
+        batch.out = idx.parse_batch([codes[q_ids[k]] for k in sel], params,
+                                    want_factors, pad_to=pad)
+        batches.append(batch)
+    return r, q_ids, batches, budget
 
 
 def collect_row(handle, want_factors: bool = False):
     """Wait for a dispatched row. Returns (r, q_ids, stats int32[len(q_ids),
     3], factors) where factors[k] is query k's factor stack, int32[n, 4]
     {dpos, kind, rpos, len}, or None unless want_factors."""
-    r, q_ids, handles = handle
+    r, q_ids, batches, budget = handle
     stats = np.zeros((len(q_ids), 3), np.int32)
     facs = [None] * len(q_ids) if want_factors else None
-    for sel, out in handles:
+    for b in batches:
+        budget.release(b)
+        stats[np.asarray(b.sel)] = b.stats
         if want_factors:
-            st, fac, fp = (np.asarray(a) for a in out)
-            for lane, k in enumerate(sel):
-                facs[k] = fac[lane, :fp[lane]]
-        else:
-            st = np.asarray(out)
-        stats[np.asarray(sel)] = st[:len(sel)]
+            for lane, k in enumerate(b.sel):
+                facs[k] = b.factors[lane]
     return r, q_ids, stats, facs
 
 
@@ -226,7 +304,7 @@ def all2all_jax(codes: list[np.ndarray], params, filter_csr=None,
     n = len(codes)
     if device is None:
         device = jax.local_devices()[0]
-    budget = batch_budget_bytes(device)
+    budget = DeviceBudget.for_device(device)
     if filter_csr is None:
         out = np.zeros((n, max(n - 1, 0), 3), dtype=np.int32)
         total_pairs = n * (n - 1)

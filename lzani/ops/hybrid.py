@@ -4,8 +4,8 @@ This module deliberately imports neither jax nor the device engine at
 module scope: the CLI's default backend is hybrid, and a run too small
 to profit from the device must pay ZERO device cost. The engine is
 imported lazily inside the warm-up thread, which only starts once the
-native pool's early rate projects the queue to outlast LZANI_WARM_MIN_S
-(see `all2all_hybrid`).
+native pool's early rate projects a queue long enough for the device to
+repay its warm-up (see `device_pays`).
 
 Extends the reference's dynamic row scheduling (lz_matcher.cpp:184-270)
 across heterogeneous executors.
@@ -61,6 +61,21 @@ def _park_warm_thread(t, warm_state):
 # high end keeps the first claim from making the device the run's
 # critical path.
 DEVICE_SEC_PER_SYM = 350e-6
+# Wall seconds a busy native pool loses to the device side's warm-up (jax
+# import, device start, the first compile, all competing with the pool for
+# host cores): 43.19 s against 39.01 s for a 300-genome run on a 16-core
+# H100 host (PERF.md).
+WARM_UP_WALL_S = 4.2
+
+
+def device_pays(remaining_s: float, native_rate: float,
+                pairs_per_row: float, longest: int) -> bool:
+    """Whether the pairs the device would parse over the native pool's
+    remaining time save more wall time than its warm-up costs the pool.
+    The device's rate is priced at DEVICE_SEC_PER_SYM per symbol of a
+    row's longest query."""
+    dev_rate = pairs_per_row / (DEVICE_SEC_PER_SYM * max(longest, 1))
+    return remaining_s * dev_rate / native_rate > WARM_UP_WALL_S
 
 
 def resolve_device(devices=None):
@@ -107,11 +122,12 @@ def all2all_hybrid(codes, params, filter_csr=None, progress=None,
         drain its own backlog (EMA of row service times); until the
         first row drains, one row is in flight.
       * Lazy asynchronous warm-up: the device side starts only once the
-        native pool's early rate projects the queue to outlast
-        LZANI_WARM_MIN_S (default 20 s); the device joins the queue once
-        a tiny pair has parsed on it; and the run returns as soon as the
-        queue drains — a slow warm-up never gates completion
-        (stats['warm_pending'] reports it).
+        native pool's early rate projects a queue over which the device
+        repays the wall time its warm-up costs the pool (device_pays; at
+        the device's measured rate, jobs of hours); the device joins
+        the queue once a tiny pair has parsed on it; and the run returns
+        as soon as the queue drains — a slow warm-up never gates
+        completion (stats['warm_pending'] reports it).
       * LZANI_HYBRID_GREEDY=1 lifts the warm gate and the tail throttle,
         and reserves the shortest row for the device before the pool
         starts, so the device provably joins (tests and the chip smoke;
@@ -260,7 +276,6 @@ def all2all_hybrid(codes, params, filter_csr=None, progress=None,
 
     pool = ThreadPoolExecutor(max_workers=2)
     pending = []
-    warm_min_s = float(os.environ.get("LZANI_WARM_MIN_S", "20"))
     verbosity = getattr(params, "verbosity_level", 1)
 
     def _warn(msg):
@@ -288,7 +303,7 @@ def all2all_hybrid(codes, params, filter_csr=None, progress=None,
             from . import engine_jax
 
             t0 = time.perf_counter()
-            budget = engine_jax.batch_budget_bytes(dev)
+            budget = engine_jax.DeviceBudget.for_device(dev)
             h = engine_jax.dispatch_row(_warm_pair(), 0, [1], params, dev,
                                         budget)
             engine_jax.collect_row(h)
@@ -357,9 +372,10 @@ def all2all_hybrid(codes, params, filter_csr=None, progress=None,
     try:
         while True:
             if not warm_started:
-                # lazy warm-up gate: join only if the queue will outlast
-                # the threshold at the native pool's own early rate (the
-                # projection can only shrink, so one decision suffices)
+                # lazy warm-up gate: join only if the device repays its
+                # warm-up over the queue's remaining time at the native
+                # pool's own early rate (the projection can only shrink,
+                # so one decision suffices)
                 if not greedy and (queue_rem() <= 0
                                    or not nat_thread.is_alive()):
                     break
@@ -368,7 +384,9 @@ def all2all_hybrid(codes, params, filter_csr=None, progress=None,
                 if greedy:
                     warm_started = True
                 elif el >= 0.5 and pdone > 0:
-                    if (total_pairs - pdone) / (pdone / el) <= warm_min_s:
+                    rate = pdone / el
+                    if not device_pays((total_pairs - pdone) / rate, rate,
+                                       total_pairs / max(n, 1), longest):
                         break  # run too small to profit from the device
                     warm_started = True
                 if warm_started:

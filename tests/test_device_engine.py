@@ -135,6 +135,69 @@ def test_batch_sizing_from_memory_budget():
             Lq, 2 * 8192 * engine_jax.PAIR_BYTES_PER_SYM)
 
 
+def _long_queries(seed, n, lo=1500, hi=3000):
+    rng = np.random.default_rng(seed)
+    ref = rng.integers(0, 4, hi).astype(np.uint8)
+    qs = [synth.mutate(rng, ref[:int(rng.integers(lo, hi))], sub=0.05,
+                       indel=0.005) for _ in range(n)]
+    return [ref] + qs
+
+
+def test_device_budget_bounds_bytes_in_flight(monkeypatch):
+    """Two rows dispatched ahead, with factor stacks kept: the bytes of the
+    batches on the device never pass the budget, and what comes back
+    equals the oracle."""
+    codes = _long_queries(6, 5)
+    p = Params()
+    one = engine_jax.batch_bytes(1, engine_jax.bucket_len(
+        max(len(c) for c in codes) + p.max_dist_in_ref))
+    budget = engine_jax.DeviceBudget(3 * one)
+    seen = []
+    real_admit = engine_jax.DeviceBudget.admit
+
+    def admit(self, batch):
+        real_admit(self, batch)
+        seen.append((self.used, len(self.live)))
+
+    monkeypatch.setattr(engine_jax.DeviceBudget, "admit", admit)
+    rows = [engine_jax.dispatch_row(codes, r, [q for q in range(3) if q != r]
+                                    + list(range(3, len(codes))), p,
+                                    None, budget, True)
+            for r in (0, 1)]
+    assert len(seen) == 2 * (len(codes) - 1)  # one lane per batch
+    assert max(u for u, _ in seen) <= budget.nbytes
+    assert budget.peak <= budget.nbytes
+    for h in rows:
+        r, q_ids, stats, facs = engine_jax.collect_row(h, True)
+        for k, q in enumerate(q_ids):
+            want = native_engine.parse_pair(codes[r], codes[q], p)[0]
+            assert tuple(int(x) for x in stats[k]) == want
+            assert np.array_equal(
+                facs[k], native_engine.parse_factors(codes[r], codes[q], p))
+    assert budget.used == 0 and not budget.live
+
+
+def test_small_budget_all2all_regions_match_native(monkeypatch, tmp_path):
+    """all2all_jax under a budget of a few lanes gives the native triples
+    and the native region dump."""
+    codes = _long_queries(7, 4)
+    p = Params()
+    one = engine_jax.batch_bytes(1, engine_jax.bucket_len(
+        max(len(c) for c in codes) + p.max_dist_in_ref))
+    monkeypatch.setattr(engine_jax, "batch_budget_bytes",
+                        lambda device: 2 * one)
+    got_path, want_path = tmp_path / "jax.regions", tmp_path / "nat.regions"
+    got = engine_jax.all2all_jax(codes, p, region_path=str(got_path))
+    want = native_engine.all2all(codes, p, region_path=str(want_path))
+    assert np.array_equal(got, want)
+
+    def as_map(path):
+        return {(r, q): regs.tobytes()
+                for r, q, regs in native_engine.read_region_dump(str(path))}
+
+    assert as_map(got_path) == as_map(want_path)
+
+
 def test_batch_budget_reads_device_memory():
     class Dev:
         def __init__(self, stats):
@@ -178,6 +241,18 @@ def test_hybrid_resolves_gpu_only(monkeypatch, platform, ok):
     got, why = resolve_device()
     assert (got is dev, why) == ((True, None) if ok else (False,
                                                           "no-device"))
+
+
+@pytest.mark.parametrize("remaining_s,joins", [(30.0, False),
+                                                (3600.0, False),
+                                                (36_000.0, True)])
+def test_hybrid_warm_gate_break_even(remaining_s, joins):
+    """At the measured rates (the native pool at 4,250 pairs/s, a device
+    row of 23 queries of 25 kb), the device repays its warm-up only on a
+    job of hours."""
+    from lzani.ops.hybrid import device_pays
+
+    assert device_pays(remaining_s, 4250.0, 23, 25_000) is joins
 
 
 def test_hybrid_without_gpu_says_no_device(monkeypatch):
